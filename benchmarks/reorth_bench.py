@@ -4,7 +4,7 @@ always-on (VERDICT r1 item 6 — record which wins at n ≥ 1e5).
 Steps-only segments at a mid-buffer k (so the always-on/auto prefix sweeps
 pay a realistic k·d·n GEMM), two-point slope timing.
 
-Run (TPU): timeout 2400 python benchmarks/reorth_bench.py
+Run (GPU): python benchmarks/reorth_bench.py
 """
 import time
 
@@ -17,9 +17,9 @@ def main():
     jax.config.update("jax_enable_x64", True)
     import jax.numpy as jnp
 
-    import tensorkrylov_tpu as tk
-    from tensorkrylov_tpu.ops.orth import init_state, lanczos_step
-    from tensorkrylov_tpu.utils.cache import enable_compilation_cache
+    import tensorkrylov as tk
+    from tensorkrylov.ops.orth import init_state, lanczos_step
+    from tensorkrylov.utils.cache import enable_compilation_cache
 
     enable_compilation_cache()
     print("backend:", jax.default_backend(), flush=True)

@@ -55,12 +55,12 @@ def main():
 
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    from tensorkrylov_tpu.utils.cache import enable_compilation_cache
+    from tensorkrylov.utils.cache import enable_compilation_cache
 
     enable_compilation_cache()
     import jax.numpy as jnp
-    import tensorkrylov_tpu as tk
-    from tensorkrylov_tpu.ops.banded import spmv
+    import tensorkrylov as tk
+    from tensorkrylov.ops.banded import spmv
 
     d, n = args.d, 1 << args.log2n
     op = tk.laplace(d, n, dtype=jnp.float32)
@@ -70,7 +70,7 @@ def main():
     print(f"single-device: {g/1e9:.1f} Gnnz/s", flush=True)
 
     if args.devices > 1:
-        from tensorkrylov_tpu.parallel import make_mesh, shard_operator, shard_rhs
+        from tensorkrylov.parallel import make_mesh, shard_operator, shard_rhs
 
         mesh = make_mesh(args.devices)
         op_s = shard_operator(op, mesh)
@@ -90,7 +90,7 @@ def weak_scaling(args, jax, jnp, tk, spmv):
     rows per device held constant at n = 2^log2n, total problem grows with
     the device count; report nnz/s and efficiency vs 1 device × D.
 
-    On a pod this measures real ICI halo overlap; on the CPU backend (8
+    On several GPUs this measures real halo overlap; on the CPU backend (8
     virtual devices) it validates the protocol and the collective layout.
     """
     import dataclasses
@@ -98,7 +98,7 @@ def weak_scaling(args, jax, jnp, tk, spmv):
 
     import numpy as np
 
-    from tensorkrylov_tpu.parallel import make_mesh, shard_operator, shard_rhs
+    from tensorkrylov.parallel import make_mesh, shard_operator, shard_rhs
 
     d, n_per = args.d, 1 << args.log2n
     base = None

@@ -40,9 +40,9 @@ def main():
     import jax.numpy as jnp
     import numpy as np
 
-    import tensorkrylov_tpu as tk
-    from tensorkrylov_tpu.experiments.northstar import sigma_for_kappa
-    from tensorkrylov_tpu.utils.cp import cp_residual_cross_check
+    import tensorkrylov as tk
+    from tensorkrylov.experiments.northstar import sigma_for_kappa
+    from tensorkrylov.utils.cp import cp_residual_cross_check
 
     sigma = sigma_for_kappa(args.n, args.kappa)
     op = tk.reaction_diffusion(args.d, args.n, sigma=sigma)

@@ -1,6 +1,6 @@
-// tkcore — native host-side runtime for tensorkrylov_tpu.
+// tkcore — native host-side runtime for tensorkrylov.
 //
-// The TPU compute path is JAX/XLA/Pallas; this library covers the host side:
+// The accelerator compute path is JAX/XLA; this library covers the host side:
 //   * multithreaded batched DIA (banded) SpMV — the CPU reference baseline
 //     for bench.py and large host-side oracle computations,
 //   * dense→DIA band extraction (the Python loop is O(n²) interpreter-bound),

@@ -14,8 +14,8 @@ if "--cpu" in sys.argv:
 jax.config.update("jax_enable_x64", True)
 
 import jax.numpy as jnp
-import tensorkrylov_tpu as tk
-from tensorkrylov_tpu.convergence import summarize
+import tensorkrylov as tk
+from tensorkrylov.convergence import summarize
 
 d, n = 5, 200
 op = tk.laplace(d, n)                       # A = Σ_s I⊗…⊗A_s⊗…⊗I, N = 200^5

@@ -15,8 +15,8 @@ if "--cpu" in sys.argv:
 jax.config.update("jax_enable_x64", True)
 
 import jax.numpy as jnp
-import tensorkrylov_tpu as tk
-from tensorkrylov_tpu.convergence import summarize
+import tensorkrylov as tk
+from tensorkrylov.convergence import summarize
 
 d, n = 3, 100
 op = tk.conv_diff(d, n, c=10.0)

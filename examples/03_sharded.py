@@ -1,7 +1,7 @@
 """Multi-device solve over a ('factor', 'mode') mesh.
 
-On a CPU host this demonstrates with 8 virtual devices; on a TPU slice the
-same code shards over the real chips (mode-axis halos ride ICI).
+On a CPU host this demonstrates with 8 virtual devices; on a multi-GPU host
+the same code shards over the real cards (mode-axis halos ride NVLink).
 
 Run: python examples/03_sharded.py
 """
@@ -19,8 +19,8 @@ jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
 
 import jax.numpy as jnp
-import tensorkrylov_tpu as tk
-from tensorkrylov_tpu.parallel import make_mesh, solve_sharded
+import tensorkrylov as tk
+from tensorkrylov.parallel import make_mesh, solve_sharded
 
 d, n = 4, 256
 mesh = make_mesh(8, factor_parallel=2)  # 2-way factor × 4-way mode

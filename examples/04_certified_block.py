@@ -13,7 +13,7 @@ jax.config.update("jax_enable_x64", True)   # f64 projected algebra
 
 import numpy as np
 
-import tensorkrylov_tpu as tk
+import tensorkrylov as tk
 
 d, n, R = 3, 256, 3
 op = tk.laplace(d, n, shift=2e4)            # shift controls conditioning

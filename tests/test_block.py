@@ -5,10 +5,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import tensorkrylov_tpu as tk
-from tensorkrylov_tpu.types import SolverConfig, Status
-from tensorkrylov_tpu.models.gallery import bands_to_dense
-from tensorkrylov_tpu.utils.cp import cp_full
+import tensorkrylov as tk
+from tensorkrylov.types import SolverConfig, Status
+from tensorkrylov.models.gallery import bands_to_dense
+from tensorkrylov.utils.cp import cp_full
 
 
 def _dense_system(op, B):

@@ -7,9 +7,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import tensorkrylov_tpu as tk
-from tensorkrylov_tpu.models.gallery import bands_to_dense
-from tensorkrylov_tpu.utils.cp import cp_full, kron_matvec_dense
+import tensorkrylov as tk
+from tensorkrylov.models.gallery import bands_to_dense
+from tensorkrylov.utils.cp import cp_full, kron_matvec_dense
 
 
 def _problem(d=3, n=32, R=2, shift=20.0, seed=1):

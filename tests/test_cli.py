@@ -11,7 +11,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def _run(*args, timeout=240):
     return subprocess.run(
-        [sys.executable, "-m", "tensorkrylov_tpu", *args],
+        [sys.executable, "-m", "tensorkrylov", *args],
         capture_output=True, text=True, cwd=REPO, timeout=timeout,
     )
 

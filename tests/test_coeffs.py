@@ -6,8 +6,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from tensorkrylov_tpu.coeffs.preprocess import parse_coefficient_file, DEFAULT_SRC
-from tensorkrylov_tpu.coeffs.tables import (
+from tensorkrylov.coeffs.preprocess import parse_coefficient_file, DEFAULT_SRC
+from tensorkrylov.coeffs.tables import (
     load_tables,
     select_bh,
     select_stenger,

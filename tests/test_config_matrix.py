@@ -1,5 +1,5 @@
 """Config compatibility matrix: every supported combination of
-orth × basis_dtype × tmax × spectral_source × step_impl either solves the
+orth × basis_dtype × tmax × spectral_source either solves the
 problem or raises a clear ValueError — never an internal shape error.
 
 Added after the round-1 judge found SolverConfig(tmax<63) crashing the SPD
@@ -11,9 +11,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import tensorkrylov_tpu as tk
-from tensorkrylov_tpu.models.gallery import conv_diff, laplace
-from tensorkrylov_tpu.types import SolverConfig, Status
+import tensorkrylov as tk
+from tensorkrylov.models.gallery import conv_diff, laplace
+from tensorkrylov.types import SolverConfig, Status
 
 
 def _rhs(rng, d, n):
@@ -49,13 +49,12 @@ _MATRIX = list(
         [jnp.float64, jnp.float32],
         [32, 63],
         ["H", "A_minor", "analytic_laplace"],
-        ["xla", "fused", "auto"],
     )
-)[::7]  # stride-sample to keep the suite fast; deterministic coverage
+)[::2]  # stride-sample to keep the suite fast; deterministic coverage
 
 
-@pytest.mark.parametrize("orth,basis_dtype,tmax,spectral_source,step_impl", _MATRIX)
-def test_config_matrix_spd(rng, orth, basis_dtype, tmax, spectral_source, step_impl):
+@pytest.mark.parametrize("orth,basis_dtype,tmax,spectral_source", _MATRIX)
+def test_config_matrix_spd(rng, orth, basis_dtype, tmax, spectral_source):
     op = laplace(2, 12)
     b = _rhs(rng, 2, 12)
     tol = 1e-8 if basis_dtype == jnp.float64 else 1e-4
@@ -66,7 +65,6 @@ def test_config_matrix_spd(rng, orth, basis_dtype, tmax, spectral_source, step_i
         orth=orth,
         basis_dtype=basis_dtype,
         spectral_source=spectral_source,
-        step_impl=step_impl,
     )
     res = tk.solve(op, b, cfg)
     assert int(res.status) in (Status.CONVERGED, Status.MAXITER)
@@ -80,7 +78,7 @@ def test_invalid_configs_raise():
     with pytest.raises(AssertionError):
         SolverConfig(orth="nope")
     with pytest.raises(AssertionError):
-        SolverConfig(step_impl="nope")
+        SolverConfig(eigh_impl="nope")
     op = conv_diff(2, 10)
     b = jnp.ones((2, 10))
     with pytest.raises(ValueError):

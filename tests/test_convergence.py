@@ -4,9 +4,9 @@ import json
 import numpy as np
 import jax.numpy as jnp
 
-import tensorkrylov_tpu as tk
-from tensorkrylov_tpu.convergence import trim, summarize, to_json
-from tensorkrylov_tpu.types import SolverConfig
+import tensorkrylov as tk
+from tensorkrylov.convergence import trim, summarize, to_json
+from tensorkrylov.types import SolverConfig
 
 
 def _result():

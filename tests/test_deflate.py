@@ -10,10 +10,10 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-import tensorkrylov_tpu as tk
-from tensorkrylov_tpu.deflate import expsum_sup_error
-from tensorkrylov_tpu.models.gallery import bands_to_dense
-from tensorkrylov_tpu.types import KroneckerSumOperator
+import tensorkrylov as tk
+from tensorkrylov.deflate import expsum_sup_error
+from tensorkrylov.models.gallery import bands_to_dense
+from tensorkrylov.types import KroneckerSumOperator
 
 
 def _distinct_shifted(d, n, base_shift=50.0):
@@ -62,7 +62,7 @@ def test_deflation_basis_toeplitz_analytic_branches():
     LAPACK path for a non-constant tridiagonal, all vs dense eigh."""
     from scipy.linalg import eigh_tridiagonal
 
-    from tensorkrylov_tpu.deflate import _toeplitz_lowest_m
+    from tensorkrylov.deflate import _toeplitz_lowest_m
 
     n, m = 37, 6
     for a, b in ((2.0 * 38.0**2 + 5.0, -(38.0**2)), (3.0, 1.7)):
@@ -116,8 +116,8 @@ def test_host_evaluate_matches_device():
 def test_structured_residual_norm_matches_materialized():
     """cp_residual_norm_accurate (indexed-Gram, memory-bounded) must equal
     cp_norm_accurate(cp_residual(...)) — the flagship-size certify path."""
-    from tensorkrylov_tpu.refine import cp_residual
-    from tensorkrylov_tpu.utils.cp import (
+    from tensorkrylov.refine import cp_residual
+    from tensorkrylov.utils.cp import (
         cp_norm_accurate,
         cp_residual_norm_accurate,
     )
@@ -179,7 +179,7 @@ def test_deflation_reduces_iterations():
 def test_deflated_basis_stays_U_orthogonal():
     """The per-step re-projection keeps the Krylov basis in the U-complement
     (drift would poison the joint-basis residual algebra)."""
-    from tensorkrylov_tpu.ops.orth import init_state, lanczos_step
+    from tensorkrylov.ops.orth import init_state, lanczos_step
 
     op = tk.laplace(2, 30, shift=5.0)
     basis = tk.deflation_basis(op, 5)
@@ -200,7 +200,7 @@ def test_deflated_basis_stays_U_orthogonal():
 
 def test_expsum_sup_error_matches_table_scale():
     """sup|1 − x g(x)| on [1, κ] is ~ ε·κ for the selected table row."""
-    from tensorkrylov_tpu.coeffs.tables import load_tables, select_bh
+    from tensorkrylov.coeffs.tables import load_tables, select_bh
 
     tables = load_tables()
     kappa = 1e3
@@ -250,7 +250,7 @@ def test_twopass_storage_matches_full():
 def test_advance_reorth_always_orthogonalizes():
     """Regression: orth='lanczos_reorth' must actually run the CGS sweep in
     the deflated driver (it was silently mapped to a no-op once)."""
-    from tensorkrylov_tpu.deflate import _advance, _init_defl_state
+    from tensorkrylov.deflate import _advance, _init_defl_state
     import jax.numpy as jnp
 
     op = tk.laplace(2, 40, shift=0.1)  # kappa ~ 7e2: Ritz pairs converge
@@ -299,7 +299,7 @@ def test_deflated_solve_b_in_span_U():
 
 
 def test_deflated_eigh_impl_tridiag_mixed_matches_dense():
-    """The TPU checkpoint evaluation (mixed-precision tridiagonal eigh) must
+    """The mixed-precision tridiagonal eigh checkpoint evaluation must
     match the dense-eigh evaluation to f64 working accuracy."""
     op = tk.laplace(3, 30, shift=50.0)
     b = tk.random_rhs(3, 30, seed=7)
@@ -349,7 +349,7 @@ def test_tridiag_parts_plus_band_only():
     """A symmetric tridiagonal operator stored with offsets (0, +1) must
     yield the same deflation basis as the (-1, 0) storage (ADVICE r2: the
     +1-only layout used to silently produce e=0 → a diagonal-matrix basis)."""
-    from tensorkrylov_tpu.deflate import _tridiag_parts
+    from tensorkrylov.deflate import _tridiag_parts
 
     n = 18
     rng = np.random.default_rng(3)
@@ -378,7 +378,7 @@ def test_tridiag_parts_plus_band_only():
 
 @pytest.mark.slow
 def test_project_every_stride_matches_per_step():
-    """Strided U-projection (the flagship TPU step-cost optimization) must
+    """Strided U-projection (a flagship step-cost optimization) must
     reproduce the per-step-projected solve and keep the measured U-leak at
     the amplified-roundoff level."""
     op = tk.laplace(2, 64, shift=30.0)
@@ -401,8 +401,8 @@ def test_project_every_stride_matches_per_step():
 @pytest.mark.slow
 def test_segmented_storage_matches_full():
     """storage='segmented' (per-segment basis blocks + boundary full
-    reorthogonalization — the flagship TPU mode: big f64 buffers never
-    cross a jit boundary) must match storage='full' and keep the measured
+    reorthogonalization: big f64 buffers never cross a jit boundary)
+    must match storage='full' and keep the measured
     boundary drift at roundoff on a well-conditioned problem."""
     op = tk.laplace(2, 64, shift=30.0)
     b = tk.random_rhs(2, 64, seed=5)
@@ -423,7 +423,8 @@ def test_segmented_storage_matches_full():
 
 def test_df64_storage_matches_full_and_certifies():
     """storage='df64' (f32 hi/lo pair basis + in-kernel per-step full
-    reorthogonalization — THE flagship TPU mode) must match storage='full',
+    reorthogonalization — the certifying mode without native f64) must
+    match storage='full',
     keep the measured pre-sweep overlap at roundoff, and produce a
     cross-check that AGREES with the dense-oracle truth (the property the
     twopass/segmented modes measurably lack at scale)."""
@@ -477,7 +478,7 @@ def test_evaluate_host_recorded_inverts_perturbed_operator():
     Frechet-corrected y must drive the measured joint defect ~|W|^2/gap
     below the uncorrected level by orders of magnitude (the r3 flagship
     gap was exactly an uncorrected-W term)."""
-    from tensorkrylov_tpu.deflate import _evaluate_host_recorded
+    from tensorkrylov.deflate import _evaluate_host_recorded
 
     rng = np.random.default_rng(3)
     d, k, m, Kp = 2, 12, 3, 16
@@ -492,8 +493,8 @@ def test_evaluate_host_recorded_inverts_perturbed_operator():
     b0 = np.ones(d)
     lam_min = float(lam[:, 0].sum() + 0.0) * 0 + float(lam[:, 0].sum())
     # exp-sum coefficients for 1/x on [1, kappa]: use the BH table loader
-    import tensorkrylov_tpu as tk2
-    from tensorkrylov_tpu.coeffs.tables import load_tables, select_bh
+    import tensorkrylov as tk2
+    from tensorkrylov.coeffs.tables import load_tables, select_bh
     tables = load_tables()
     lam_tot_max = float(lam[:, -1].sum() + 2 * (dg.max() + 2 * od.max()))
     kappa = lam_tot_max / lam_min

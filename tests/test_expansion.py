@@ -1,14 +1,13 @@
 """f32 expansion arithmetic (ops/expansion.py) vs numpy longdouble oracles.
 
-These run on CPU (conftest) where f32 ops are IEEE; the TPU backend's EFT
-exactness is separately probe-verified (benchmarks/f64_emulation_probe.py,
-committed data: TwoSum/TwoProd defects identically 0 on-chip)."""
+These run on CPU (conftest) where f32 ops are IEEE; on the GPU the same
+exactness is measured by eft_selfcheck in chip_smoke.py's phase 4."""
 import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
 
-from tensorkrylov_tpu.ops import expansion as ex
+from tensorkrylov.ops import expansion as ex
 
 ld = np.longdouble
 rng = np.random.default_rng(42)
@@ -103,9 +102,8 @@ def test_triple_scale_and_sub():
     te = f(jnp.asarray(v), jnp.asarray(c))
     assert float(np.max(np.abs(_tval(te) - exact) / scale)) < 2.5e-19
     # jit: this CPU jaxlib evaluates f32 chains at f64 excess precision
-    # (measured, unfixable by flags/barriers) — still >= pair-grade. The
-    # TPU backend's composed accuracy is probe-measured separately
-    # (eft_selfcheck / benchmarks/f64_emulation_probe.py).
+    # (measured, unfixable by flags/barriers) — still >= pair-grade. Each
+    # backend's composed accuracy is measured by eft_selfcheck.
     tj = jax.jit(f)(jnp.asarray(v), jnp.asarray(c))
     assert float(np.max(np.abs(_tval(tj) - exact) / scale)) < 1e-14
 
@@ -124,7 +122,7 @@ def test_round_pair_exact_remainder():
 
 def test_triple_spmv_pairs_vs_dense():
     """Expansion SpMV vs longdouble dense oracle on a random tridiag."""
-    import tensorkrylov_tpu as tk
+    import tensorkrylov as tk
 
     op = tk.laplace(2, 64, shift=3.0)
     bands = np.asarray(op.bands, np.float64)

@@ -1,7 +1,7 @@
 """Experiment-module unit tests (spectrum enumeration, families)."""
 import numpy as np
 
-from tensorkrylov_tpu.experiments.eigenvalue_distribution import (
+from tensorkrylov.experiments.eigenvalue_distribution import (
     clusterzero,
     clusterone,
     kronsum_spectrum,
@@ -39,7 +39,7 @@ def test_perturbed_spectrum():
 def test_interpret_cross_check_branches():
     """ADVICE r3 medium: a measurement above the certified bound must be
     labelled a contradiction, never a confirmation."""
-    from tensorkrylov_tpu.experiments.northstar import interpret_cross_check
+    from tensorkrylov.experiments.northstar import interpret_cross_check
 
     assert interpret_cross_check(None, 1e-9, 1e-9, 1e-8) is None
     assert "<= floor" in interpret_cross_check(1e-10, 1e-9, 5e-9, 1e-8)

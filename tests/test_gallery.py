@@ -7,8 +7,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import tensorkrylov_tpu as tk
-from tensorkrylov_tpu.models.gallery import bands_to_dense, dense_to_bands
+import tensorkrylov as tk
+from tensorkrylov.models.gallery import bands_to_dense, dense_to_bands
 
 
 def dense_laplace(n):
@@ -78,7 +78,7 @@ def test_dense_to_bands_roundtrip(rng):
 
 def test_operator_from_scipy():
     import scipy.sparse as sp
-    from tensorkrylov_tpu.models.gallery import operator_from_scipy
+    from tensorkrylov.models.gallery import operator_from_scipy
 
     rng = np.random.default_rng(11)
     n = 15

@@ -7,8 +7,8 @@ import os
 import numpy as np
 import jax.numpy as jnp
 
-import tensorkrylov_tpu as tk
-from tensorkrylov_tpu.types import SolverConfig
+import tensorkrylov as tk
+from tensorkrylov.types import SolverConfig
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden_laplace_d4_n100.json")
 

@@ -18,9 +18,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import tensorkrylov_tpu as tk
-from tensorkrylov_tpu.types import SolverConfig
-from tensorkrylov_tpu.utils.julia_serial import load_reference_experiment
+import tensorkrylov as tk
+from tensorkrylov.types import SolverConfig
+from tensorkrylov.utils.julia_serial import load_reference_experiment
 
 _DATA = "/root/reference/experiments/data/reproduction_data"
 

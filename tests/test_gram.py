@@ -6,7 +6,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from tensorkrylov_tpu.ops.gram import (
+from tensorkrylov.ops.gram import (
     residual_norm_sq,
     cp_gram_matrices,
     _mask_yz,

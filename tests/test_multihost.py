@@ -11,12 +11,12 @@ import pytest
 
 import jax
 
-from tensorkrylov_tpu.parallel.multihost import make_pod_mesh
+from tensorkrylov.parallel.multihost import make_pod_mesh
 
 
 def test_pod_mesh_axis_policy():
-    """'factor' must span the process-major (DCN) dimension, 'mode' the
-    local (ICI) one — jax.devices() is process-major, so rows of the grid
+    """'factor' must span the process-major dimension, 'mode' each
+    process's local devices — jax.devices() is process-major, so rows of the grid
     are contiguous device ranges."""
     devs = jax.devices()[:8]
     mesh = make_pod_mesh(factor_parallel=2, devices=devs)
@@ -50,7 +50,7 @@ def test_two_process_cpu_smoke():
     procs = [
         subprocess.Popen(
             [
-                sys.executable, "-m", "tensorkrylov_tpu.parallel._smoke",
+                sys.executable, "-m", "tensorkrylov.parallel._smoke",
                 "--coordinator", f"localhost:{port}",
                 "--num-processes", "2", "--process-id", str(i),
                 "--local-devices", "2", "--cpu",
@@ -70,7 +70,7 @@ def test_two_process_cpu_smoke():
     assert status == 1 and rel < 1e-6    # CONVERGED under tol
 
     # cross-check against the same solve single-process
-    import tensorkrylov_tpu as tk
+    import tensorkrylov as tk
 
     op = tk.laplace(4, 32)
     b = tk.random_rhs(4, 32, seed=1)

@@ -2,8 +2,8 @@
 import numpy as np
 import pytest
 
-from tensorkrylov_tpu import native
-from tensorkrylov_tpu.models.gallery import dense_to_bands as py_dense_to_bands
+from tensorkrylov import native
+from tensorkrylov.models.gallery import dense_to_bands as py_dense_to_bands
 
 
 needs_native = pytest.mark.skipif(not native.available(), reason="no toolchain")
@@ -43,7 +43,7 @@ def test_native_dense_to_bands(rng):
 @needs_native
 def test_native_bh_parser_matches_python():
     import os
-    from tensorkrylov_tpu.coeffs.preprocess import parse_coefficient_file, DEFAULT_SRC
+    from tensorkrylov.coeffs.preprocess import parse_coefficient_file, DEFAULT_SRC
 
     if not os.path.isdir(DEFAULT_SRC):
         pytest.skip("raw coefficient files not present")

@@ -7,23 +7,23 @@ import jax.numpy as jnp
 import pytest
 import scipy.linalg
 
-import tensorkrylov_tpu as tk
-from tensorkrylov_tpu.models.gallery import bands_to_dense
-from tensorkrylov_tpu.ops.banded import spmv
-from tensorkrylov_tpu.ops.orth import (
+import tensorkrylov as tk
+from tensorkrylov.models.gallery import bands_to_dense
+from tensorkrylov.ops.banded import spmv
+from tensorkrylov.ops.orth import (
     init_state,
     lanczos_step,
     arnoldi_step,
     orthogonality_loss,
 )
-from tensorkrylov_tpu.ops.eigen import (
+from tensorkrylov.ops.eigen import (
     masked_eigh,
     sym_extremes_from_eigs,
     analytic_laplace_extremes,
     dense_minor_window,
     tridiag_eigvalsh_sturm,
 )
-from tensorkrylov_tpu.ops.expsum import cp_solve_sym, cp_solve_nonsym, expm_taylor_ss
+from tensorkrylov.ops.expsum import cp_solve_sym, cp_solve_nonsym, expm_taylor_ss
 
 
 # ---------------------------------------------------------------- banded SpMV
@@ -227,7 +227,7 @@ def test_cp_solve_nonsym_columns():
 def test_standalone_algorithm_drivers():
     """Single-matrix batch drivers (reference test/decompositions.jl:4-19
     pattern: long single-factor recurrences stay orthonormal)."""
-    from tensorkrylov_tpu.ops.orth import lanczos_algorithm, arnoldi_algorithm
+    from tensorkrylov.ops.orth import lanczos_algorithm, arnoldi_algorithm
 
     n, k = 300, 120
     op = tk.laplace(1, n)
@@ -245,7 +245,7 @@ def test_standalone_algorithm_drivers():
 
 
 def test_laplace_eigenvectors_analytic():
-    from tensorkrylov_tpu.ops.eigen import laplace_eigenvector, laplace_eigenspace
+    from tensorkrylov.ops.eigen import laplace_eigenvector, laplace_eigenspace
 
     n = 20
     op = tk.laplace(1, n)
@@ -264,8 +264,8 @@ def test_laplace_eigenvectors_analytic():
 def test_nonsym_eig_matches_expm_projected_solve():
     """cp_solve_nonsym_eig (one complex eig + diagonal scalings) must match
     the expm-chain path on the oracle problem to near-f64."""
-    import tensorkrylov_tpu as tk
-    from tensorkrylov_tpu.types import SolverConfig
+    import tensorkrylov as tk
+    from tensorkrylov.types import SolverConfig
 
     op = tk.conv_diff(3, 24)
     b = tk.random_rhs(3, 24, seed=5)

@@ -6,7 +6,7 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-import tensorkrylov_tpu as tk
+import tensorkrylov as tk
 
 
 def _lap(n, shift=0.0):
@@ -69,7 +69,7 @@ def test_ragged_pad_preserves_spectrum_extremes():
     sizes = (6, 9)
     mats = [_lap(n, shift=2.0) for n in sizes]
     op, _ = tk.operator_from_ragged_factors(mats, symmetric=True)
-    from tensorkrylov_tpu.models.gallery import bands_to_dense
+    from tensorkrylov.models.gallery import bands_to_dense
 
     padded = bands_to_dense(op)
     for s, A in enumerate(mats):
@@ -108,6 +108,6 @@ def test_equal_size_constructors_reject_ragged():
         tk.operator_from_dense_factors(mats, symmetric=True)
     import scipy.sparse as sp
 
-    from tensorkrylov_tpu.models.gallery import operator_from_scipy
+    from tensorkrylov.models.gallery import operator_from_scipy
     with pytest.raises(ValueError, match="ragged"):
         operator_from_scipy([sp.csr_matrix(m) for m in mats], symmetric=True)

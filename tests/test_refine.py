@@ -4,9 +4,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import tensorkrylov_tpu as tk
-from tensorkrylov_tpu.types import CPTensor, SolverConfig, Status
-from tensorkrylov_tpu.utils.cp import cp_full, cp_round, kron_apply_cp, kron_matvec_dense
+import tensorkrylov as tk
+from tensorkrylov.types import CPTensor, SolverConfig, Status
+from tensorkrylov.utils.cp import cp_full, cp_round, kron_apply_cp, kron_matvec_dense
 
 
 def _normalized_rhs(d, n, seed, identical=True):

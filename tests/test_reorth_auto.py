@@ -10,9 +10,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import tensorkrylov_tpu as tk
-from tensorkrylov_tpu.ops.orth import init_state, lanczos_step, orthogonality_loss
-from tensorkrylov_tpu.types import SolverConfig, Status
+import tensorkrylov as tk
+from tensorkrylov.ops.orth import init_state, lanczos_step, orthogonality_loss
+from tensorkrylov.types import SolverConfig, Status
 
 
 def _hard_op_rhs(seed=7, n=48):

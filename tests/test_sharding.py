@@ -5,10 +5,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-import tensorkrylov_tpu as tk
-from tensorkrylov_tpu.parallel import make_mesh, solve_sharded, shard_operator, shard_rhs
-from tensorkrylov_tpu.ops.banded import spmv
-from tensorkrylov_tpu.types import SolverConfig, Status
+import tensorkrylov as tk
+from tensorkrylov.parallel import make_mesh, solve_sharded, shard_operator, shard_rhs
+from tensorkrylov.ops.banded import spmv
+from tensorkrylov.types import SolverConfig, Status
 
 
 @pytest.fixture(scope="module")
@@ -60,7 +60,7 @@ def test_factor_parallel_mesh(mesh8):
 
 def test_halo_spmv_matches(mesh8):
     """Explicit shard_map + ppermute halo SpMV == single-device SpMV."""
-    from tensorkrylov_tpu.parallel.halo import make_halo_spmv
+    from tensorkrylov.parallel.halo import make_halo_spmv
 
     op = tk.conv_diff(3, 64)  # bandwidth 2 upper — nontrivial halos
     rng = np.random.default_rng(7)
@@ -118,8 +118,8 @@ def test_solve_deflated_sharded_matches_single_device():
     """Mode-sharded deflated solve (GSPMD and explicit ring-halo) must match
     the single-device result to roundoff, for both storage modes
     (VERDICT r2 missing #2 / next #3)."""
-    import tensorkrylov_tpu as tk
-    from tensorkrylov_tpu.parallel import make_mesh
+    import tensorkrylov as tk
+    from tensorkrylov.parallel import make_mesh
 
     op = tk.laplace(2, 64, shift=30.0)
     b = tk.random_rhs(2, 64, seed=5)
@@ -146,8 +146,8 @@ def test_solve_deflated_df64_sharded_matches_single_device():
     recorded recurrence, certificate, and device-final assembly +
     cross-check all run under GSPMD; results must match the single-device
     solve to pair-GEMM roundoff."""
-    import tensorkrylov_tpu as tk
-    from tensorkrylov_tpu.parallel import make_mesh
+    import tensorkrylov as tk
+    from tensorkrylov.parallel import make_mesh
 
     op = tk.laplace(2, 64, shift=30.0)
     b = tk.random_rhs(2, 64, seed=5)

@@ -4,8 +4,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import tensorkrylov_tpu as tk
-from tensorkrylov_tpu.types import SolverConfig, Status
+import tensorkrylov as tk
+from tensorkrylov.types import SolverConfig, Status
 
 
 def _normalized_rhs(d, n, seed, identical=True):
@@ -132,9 +132,9 @@ def test_input_validation():
 def test_multi_rhs_rank2():
     """Rank-2 tensor-product RHS via batched solves (capability beyond the
     reference)."""
-    import tensorkrylov_tpu as tk
-    from tensorkrylov_tpu.solver import solve_multi_rhs
-    from tensorkrylov_tpu.utils.cp import cp_full, kron_matvec_dense
+    import tensorkrylov as tk
+    from tensorkrylov.solver import solve_multi_rhs
+    from tensorkrylov.utils.cp import cp_full, kron_matvec_dense
 
     d, n, R = 3, 20, 2
     op = tk.laplace(d, n)
@@ -169,7 +169,7 @@ def test_multi_rhs_rank2():
 def test_resumable_matches_and_resumes(tmp_path):
     """Segmented+checkpointed solve must match the single-shot solve exactly,
     and resuming from disk must continue bit-for-bit."""
-    from tensorkrylov_tpu.solver import solve_resumable
+    from tensorkrylov.solver import solve_resumable
 
     op = tk.laplace(3, 30)
     b = _normalized_rhs(3, 30, 17)
@@ -185,13 +185,13 @@ def test_resumable_matches_and_resumes(tmp_path):
     )
 
     # simulate a crash mid-solve: run 2 chunks only, then resume from disk
-    from tensorkrylov_tpu.solver import _init_carry_jit, _segment_jit, _finalize_jit
-    from tensorkrylov_tpu.coeffs.tables import load_tables
+    from tensorkrylov.solver import _init_carry_jit, _segment_jit, _finalize_jit
+    from tensorkrylov.coeffs.tables import load_tables
     import jax.numpy as jnp
     tables = load_tables()
     carry = _init_carry_jit(op, b, tables, cfg)
     carry = _segment_jit(op, b, tables, cfg, carry, jnp.asarray(14, jnp.int32))
-    from tensorkrylov_tpu.utils.checkpoint import save_carry
+    from tensorkrylov.utils.checkpoint import save_carry
     save_carry(ckpt, carry)
     resumed = solve_resumable(op, b, cfg, checkpoint_path=ckpt, resume=True, chunk=9)
     assert int(resumed.niterations) == ni
@@ -228,7 +228,7 @@ def test_single_mode_d1():
 @pytest.mark.slow
 def test_host_projected_matches_device():
     """Hybrid host-projected mode must match the all-device solve."""
-    from tensorkrylov_tpu.solver import solve_host_projected
+    from tensorkrylov.solver import solve_host_projected
 
     op = tk.laplace(3, 30)
     b = _normalized_rhs(3, 30, 20)
@@ -266,9 +266,9 @@ def test_lucky_breakdown_restart():
     """RHS aligned with an eigenvector triggers lucky breakdown; the restart
     (fresh orthogonal direction) must keep the solve exact — the reference's
     zero-vector handling poisons its spectral estimates here."""
-    from tensorkrylov_tpu.solver import solve_multi_rhs
-    from tensorkrylov_tpu.utils.cp import cp_full, kron_matvec_dense
-    from tensorkrylov_tpu.types import CPTensor
+    from tensorkrylov.solver import solve_multi_rhs
+    from tensorkrylov.utils.cp import cp_full, kron_matvec_dense
+    from tensorkrylov.types import CPTensor
 
     d, n = 2, 24
     op = tk.eigval_matrix(np.linspace(1.0, 30.0, n), d=d)
@@ -287,7 +287,7 @@ def test_lucky_breakdown_restart():
 
 
 def test_cp_compress():
-    from tensorkrylov_tpu.utils.cp import cp_compress, cp_full
+    from tensorkrylov.utils.cp import cp_compress, cp_full
 
     op = tk.laplace(2, 20)
     b = _normalized_rhs(2, 20, 23)
@@ -303,8 +303,8 @@ def test_monotone_Anorm_error():
     """Galerkin property: the A-norm error is non-increasing in the subspace
     size (the reference intended but never ran this check,
     /root/reference/test/test_utils.jl:192-247)."""
-    from tensorkrylov_tpu.utils.cp import cp_full, kron_matvec_dense
-    from tensorkrylov_tpu.models.gallery import bands_to_dense
+    from tensorkrylov.utils.cp import cp_full, kron_matvec_dense
+    from tensorkrylov.models.gallery import bands_to_dense
 
     d, n = 2, 12
     op = tk.laplace(d, n)
@@ -329,7 +329,7 @@ def test_host_projected_nonsym_exact_lmin():
     """Nonsym host-projected mode uses exact host eigenvalues for λ_min —
     the chosen Stenger rank must not exceed the device (Bendixson-bound)
     rank, and the solve still certifies the true residual."""
-    from tensorkrylov_tpu.solver import solve_host_projected
+    from tensorkrylov.solver import solve_host_projected
 
     op = tk.conv_diff(3, 30)
     b = _normalized_rhs(3, 30, 26)

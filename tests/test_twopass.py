@@ -4,8 +4,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import tensorkrylov_tpu as tk
-from tensorkrylov_tpu.types import SolverConfig, Status
+import tensorkrylov as tk
+from tensorkrylov.types import SolverConfig, Status
 
 
 def _normalized_rhs(d, n, seed, identical=True):
